@@ -1,6 +1,6 @@
-"""matchtigs_tpu: TPU-native tig-compaction engine.
+"""matchtigs_tpu: accelerator tig-compaction engine (JAX/XLA, run on NVIDIA GPUs).
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 algbio/matchtigs (reference at /root/reference): computes pathtigs,
 Eulertigs, greedy matchtigs and optimal matchtigs — small/minimum
 plain-text representations of k-mer sets — from fasta/GFA/BCALM2 unitigs.

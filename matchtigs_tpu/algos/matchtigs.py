@@ -44,10 +44,9 @@ logger = logging.getLogger(__name__)
 @dataclass
 class MatchtigConfig:
     k: int
-    # Same measured v5e optima as GreedytigConfig: C=4 halves the kernel
-    # sort width (and avoids the ~10-min remote compile of the C=16
-    # body); overflowed sources recompute exactly on the host tail, so
-    # the candidate set is identical either way.
+    # Same defaults as GreedytigConfig (not yet measured on the H100);
+    # overflowed sources recompute exactly on the host tail, so the
+    # candidate set is identical for any capacity.
     initial_capacity: int = 4
     max_capacity: int = 1 << 16
     batch_size: int = 4096
@@ -423,8 +422,13 @@ def _collapse_candidates_packed(g, u, v, w, ids_start, ids_count, n_ids):
     return lo, hi, wk, ur, vr
 
 
-def compute_matchtigs(g: Bigraph, config: MatchtigConfig) -> "Walks":
-    """Mutates `g` (adds dummy biedges) and returns edge walks."""
+def compute_matchtigs(
+    g: Bigraph, config: MatchtigConfig, stats: SearchStats | None = None
+) -> "Walks":
+    """Mutates `g` (adds dummy biedges) and returns edge walks.
+
+    ``stats``, when given, is filled in place with the search-phase
+    counters, as in :func:`compute_greedytigs`."""
     import time
 
     t0 = time.monotonic()
@@ -455,7 +459,7 @@ def compute_matchtigs(g: Bigraph, config: MatchtigConfig) -> "Walks":
         host_strategy=config.host_strategy,
         engine=config.engine,
     )
-    stats = SearchStats()
+    stats = stats if stats is not None else SearchStats()
     candidates = collect_candidates(g, out_nodes, in_mask, k, gt_config, stats)
     logger.info("Found %d candidate shortest paths", len(candidates))
     lap("Candidate phase")

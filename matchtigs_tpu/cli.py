@@ -34,7 +34,7 @@ logger = logging.getLogger("matchtigs_tpu")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="matchtigs-tpu",
-        description="Matchtigs (TPU-native): minimum plain text representation of kmer sets.",
+        description="Matchtigs (accelerator engine): minimum plain text representation of kmer sets.",
     )
     p.add_argument("--gfa-in", help="GFA file containing the input unitigs (.gz ok)")
     p.add_argument("--fa-in", help="Fasta file containing the input unitigs (.gz ok)")
@@ -63,9 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     # The SSSP perf knobs default to None and are filled from the algorithm
     # dataclasses at dispatch time, so the CLI can never silently diverge
-    # from the A/B-measured GreedytigConfig/MatchtigConfig optima (C=4,
-    # batch 4096; a C=16 kernel body costs a ~666s remote compile for a
-    # slower kernel).  tests/test_cli.py asserts the defaults stay equal.
+    # from the GreedytigConfig/MatchtigConfig defaults (C=4, batch 4096).
+    # tests/test_cli.py asserts the defaults stay equal.
     p.add_argument(
         "--sssp-initial-capacity",
         type=int,
@@ -93,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
         default=1,
         help="route sources whose min incident edge weight is <= this to the "
         "concurrent host Dijkstra (-1 disables the split); 1 matches the "
-        "A/B-measured GreedytigConfig default (26.5s vs 29.2s at 60M on v5e)",
+        "GreedytigConfig default",
     )
     p.add_argument(
         "--use-mesh",
@@ -163,7 +162,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _sssp_overrides(opts) -> dict:
     """SSSP perf knobs the user set explicitly; unset flags fall through to
-    the dataclass defaults (the measured optima) instead of shadowing them."""
+    the dataclass defaults instead of shadowing them."""
     out = {}
     if opts.sssp_initial_capacity is not None:
         out["initial_capacity"] = opts.sssp_initial_capacity
@@ -229,8 +228,10 @@ def main(argv: list[str] | None = None) -> int:
         format="%(asctime)s %(levelname)s [%(name)s] %(message)s",
     )
     logger.info("matchtigs-tpu starting")
+    from .utils.compile_cache import enable_compile_cache
     from .utils.malloc_tuning import tune_malloc
 
+    enable_compile_cache()
     tune_malloc()
 
     load_start = time.monotonic()
@@ -252,8 +253,8 @@ def main(argv: list[str] | None = None) -> int:
     # Pre-fault the working-set arena in one bulk syscall: the candidate
     # columns / sort keys of the greedy/optimal matchtig search scale
     # with the candidate count (~3.3 per edge at k=31, 24B+8B key each,
-    # x2 for scratch), and lazy first-touch faults are pathologically
-    # slow on oversubscribed virtualized hosts (0.4-39s per GB observed).
+    # x2 for scratch), and lazy first-touch faults can be slow on
+    # oversubscribed virtualized hosts.
     # Only the candidate-building algorithms need it, and the target is
     # capped by available memory so the prewarm can never thrash a host
     # the real working set would have fit on.

@@ -2,7 +2,7 @@
 
 Capability-equivalent of the reference's ``NodeBigraphWrapper<PetGraph>``
 (``bigraph``/``traitgraph`` crates; call sites /root/reference/src/bin.rs:349-355,
-/root/reference/src/implementation/mod.rs:9-16) redesigned for TPU/XLA:
+reference src/implementation/mod.rs:9-16) redesigned for XLA:
 
 - Every unitig is a *biedge*: a forward edge ``n1 -> n2`` and its mirror
   ``mirror(n2) -> mirror(n1)`` carrying the reverse-complement orientation.

@@ -26,15 +26,38 @@ _SOURCES = [
     "tigs.cpp",
 ]
 
+_CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+              "-pthread"]
+
 _lib: ctypes.CDLL | None = None
 _load_error: Exception | None = None
 
 
+def _host_isa() -> str:
+    """The host CPU's instruction-set flags: what ``-march=native``
+    compiles for.  A library built on another CPU may use instructions
+    this one lacks (SIGILL), so they are part of the build hash."""
+    import platform
+
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    return " ".join(sorted(line.split(":", 1)[1].split()))
+    except OSError:
+        pass
+    return platform.machine() + " " + platform.processor()
+
+
 def _src_hash() -> str:
+    """Hash of everything the built library depends on: the sources,
+    the compiler flags and the host CPU's instruction set."""
     h = hashlib.sha256()
     for s in _SOURCES:
         h.update(s.encode())
         h.update((_SRC_DIR / s).read_bytes())
+    h.update(" ".join(_CXX_FLAGS).encode())
+    h.update(_host_isa().encode())
     return h.hexdigest()
 
 
@@ -43,18 +66,7 @@ def _build() -> None:
 
     srcs = [str(_SRC_DIR / s) for s in _SOURCES]
     tmp = _LIB_PATH.with_suffix(f".so.build{os.getpid()}")
-    cmd = [
-        "g++",
-        "-O3",
-        "-march=native",
-        "-shared",
-        "-fPIC",
-        "-std=c++17",
-        "-pthread",
-        "-o",
-        str(tmp),
-        *srcs,
-    ]
+    cmd = ["g++", *_CXX_FLAGS, "-o", str(tmp), *srcs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -67,7 +79,8 @@ def _build() -> None:
 
 def _needs_rebuild() -> bool:
     # Content-hash trigger, not mtimes: a fresh checkout gives sources and a
-    # (foreign, possibly -march=native-incompatible) .so identical mtimes.
+    # (foreign, possibly -march=native-incompatible) .so identical mtimes;
+    # the hash also covers the flags and the host CPU's instruction set.
     if not _LIB_PATH.exists() or not _HASH_PATH.exists():
         return True
     return _HASH_PATH.read_text().strip() != _src_hash()

@@ -1,7 +1,7 @@
 """Multi-chip scaling: source-batch data parallelism over a device mesh.
 
 The reference's only parallelism is a shared-memory thread pool with a
-mutex work queue (SURVEY.md §2.3 P1-P6).  The TPU-native analog per
+mutex work queue (SURVEY.md §2.3 P1-P6).  The device analog per
 BASELINE.json: the graph's padded adjacency is replicated to every device
 (HBM-resident, read-only), the *source batch* of the bounded shortest-path
 phase is sharded across a 1-D mesh axis, and results come back sharded
@@ -14,8 +14,8 @@ persistent-pool retire/refill loop (``_pool_impl``, default) or the
 ``fori_loop`` batch accumulation (``_run_batches_impl``) — downloads
 packed one-int32-per-slot results, and feeds the same native extraction
 (:func:`matchtigs_tpu.ops.sssp.extract_packed_candidates`) — one device
-dispatch per stage regardless of batch count, half the link traffic of
-unpacked downloads.
+dispatch per stage regardless of batch count, half the download of
+unpacked results.
 
 Load balance: sources arrive difficulty-ordered (hardest first, see
 greedytigs source prep); they are striped round-robin across devices so
@@ -53,7 +53,7 @@ def initialize_distributed(
     """Multi-host setup: call once per host before any jax use.
 
     Thin wrapper over ``jax.distributed.initialize``; afterwards
-    ``make_mesh()`` spans the whole pod slice and
+    ``make_mesh()`` spans every process's devices and
     :func:`sharded_bounded_sssp` runs SPMD across hosts (every host feeds
     the same deterministic global source array; candidate results are
     allgathered back to every host so matching and Euler stitching stay
@@ -368,8 +368,7 @@ def distributed_euler_break(g, k: int):
     Reference analog: the per-WCC work split at
     /root/reference/src/implementation/matchtigs/mod.rs:555-576 — here
     distributed over hosts instead of threads, removing the largest
-    fixed (replicated) cost from the multi-chip scaling model
-    (BASELINE.md round-5).
+    fixed (replicated) cost of the multi-chip path.
     """
     n = jax.process_count()
     if n == 1:
@@ -413,8 +412,7 @@ def distributed_euler_break(g, k: int):
 @functools.partial(jax.jit, static_argnames=("n_dev", "mesh"))
 def _sharded_sort_impl(hi, lo, n_dev: int, mesh: Mesh):
     """Global sort of a mesh-sharded 64-bit key vector carried as
-    (hi: int32, lo: uint32) two-key pairs — the TPU-idiomatic layout
-    (64-bit lanes are emulated on the VPU, and jax's default x64-disable
+    (hi: int32, lo: uint32) two-key pairs (jax's default x64-disable
     would silently truncate an int64 operand): per-shard two-key
     ``lax.sort`` followed by ``n_dev`` odd-even transposition rounds of
     pairwise merge-split between neighbor shards (full-shard ``ppermute``
@@ -424,7 +422,7 @@ def _sharded_sort_impl(hi, lo, n_dev: int, mesh: Mesh):
     blocks and compare-exchange replaced by merge-split, N rounds sort
     any input).  O(N) rounds is the proof-of-concept tradeoff; the
     O(log^2 N) bitonic schedule rides the same ppermute/merge-split
-    primitives when pod-scale N makes it matter."""
+    primitives when a large device count makes it matter."""
 
     def local(h, lw):
         h, lw = jax.lax.sort((h, lw), num_keys=2)

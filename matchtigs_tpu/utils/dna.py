@@ -1,6 +1,6 @@
 """2-bit DNA encoding utilities (numpy, host side).
 
-TPU-native analog of the reference's ``compact-genome`` crate
+Array-native analog of the reference's ``compact-genome`` crate
 (/root/reference/src/bin.rs:25-30): sequences are stored once, 2-bit
 packed, and edges refer to them by handle.  Unlike the pointer-based
 Rust arena, sequences here live in one flat uint8 code array (one code

@@ -4,7 +4,7 @@
 // These are the reference's `bigraph::algo` capabilities (Eulerian
 // decomposition eulertigs/mod.rs:119 via crate call, walk cover
 // pathtigs/mod.rs:38) re-implemented as flat-array C++ passes: O(E)
-// pointer-chasing that is not a fit for the TPU device path but must not
+// pointer-chasing that is not a fit for the device path but must not
 // run as per-edge Python either.  Called via ctypes on int64 arrays.
 
 #include <algorithm>

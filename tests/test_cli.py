@@ -270,10 +270,9 @@ def test_phase_memory_logged_at_info(unitig_fa, tmp_path, caplog):
 
 
 def test_sssp_cli_defaults_track_config_defaults():
-    """Unset --sssp-* flags must resolve to the dataclass defaults (the
-    A/B-measured optima), never shadow them (VERDICT r4 weak #3: the CLI
-    once pinned C=16/batch=8192 while the measured optima were 4/4096,
-    costing a ~666s remote compile for a slower kernel)."""
+    """Unset --sssp-* flags must resolve to the dataclass defaults, never
+    shadow them (the CLI once pinned C=16/batch=8192 while the dataclass
+    defaults were 4/4096)."""
     from matchtigs_tpu.algos.greedytigs import GreedytigConfig
     from matchtigs_tpu.algos.matchtigs import MatchtigConfig
     from matchtigs_tpu.cli import _sssp_overrides, build_parser

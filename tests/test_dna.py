@@ -28,9 +28,9 @@ def test_pack_kmers_matches_scalar():
         assert int(packed[i]) == dna.pack_u64(codes[i : i + k])
 
 
-def test_revcomp_packed():
-    codes = dna.encode_ascii(b"ACGTTGCAAC")
-    k = 5
+@pytest.mark.parametrize("k", [1, 5, 16, 31])
+def test_revcomp_packed(k):
+    codes = np.random.default_rng(k).integers(0, 4, 60, dtype=np.uint8)
     packed = dna.pack_kmers_u64(codes, k)
     rc = dna.revcomp_packed_u64(packed, k)
     for i in range(len(packed)):

@@ -75,3 +75,46 @@ def test_large_k_pipeline(seed):
             gg, tigs, store, k, kmers,
             allow_duplicates=name == "greedytigs",
         )
+
+
+@pytest.mark.parametrize("k", [4, 6, 9, 31])
+def test_unitigs_canonical_unique_and_complete(k):
+    """Unitig extraction on repeat-rich input (cycles and palindromes at
+    small k): every unitig is in its lexicographically smaller
+    orientation, none repeats in either orientation, and together they
+    spell the input k-mer set exactly once."""
+    from matchtigs_tpu.utils import dna
+
+    genome = testing.random_genome_with_repeats(
+        20000, seed=k, repeat_len=50, copies_per_family=30
+    )
+    kmers = testing.kmer_set_of_codes(genome, k)
+    unitigs = testing.unitigs_from_kmers(kmers, k)
+    keys = set()
+    for u in unitigs:
+        fwd, bwd = u.tobytes(), dna.revcomp(u).tobytes()
+        assert fwd <= bwd
+        assert min(fwd, bwd) not in keys
+        keys.add(min(fwd, bwd))
+    ms = testing.kmer_multiset_of_walk_seqs(unitigs, k)
+    assert np.array_equal(ms, kmers)
+
+
+@pytest.mark.parametrize("k", [3, 11, 31])
+def test_kmer_multiset_matches_scalar_canonical_kmers(k):
+    """The k-mer oracle equals the scalar canonical form of every window
+    of every sequence (sequences shorter than k add nothing, and no
+    k-mer spans two sequences)."""
+    from matchtigs_tpu.utils import dna
+
+    rng = np.random.default_rng(k)
+    seqs = [
+        rng.integers(0, 4, n, dtype=np.uint8)
+        for n in (0, 1, k - 1, k, k + 1, 50, 200)
+    ]
+    want = np.sort(np.array([
+        min(dna.pack_u64(s[i : i + k]),
+            dna.pack_u64(dna.revcomp(s[i : i + k])))
+        for s in seqs for i in range(len(s) - k + 1)
+    ], dtype=np.uint64))
+    assert np.array_equal(testing.kmer_multiset_of_walk_seqs(seqs, k), want)

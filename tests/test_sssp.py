@@ -301,3 +301,17 @@ def test_compact_dispatch_matches_full_extraction(budget):
         return sorted(zip(t.u.tolist(), t.v.tolist(), t.d.tolist()))
 
     assert triples(tri) == triples(tri_full)
+
+
+def test_compact_dispatch_rejects_keys_past_2_30():
+    """The compaction key marks invalid slots at 2^30, so a stage with
+    (S_pad + 1) * capacity >= 2^30 slots must be refused, not corrupted."""
+    from matchtigs_tpu.ops import sssp as sssp_mod
+
+    store, _, k = testing.make_unitig_store(genome_length=3000, k=9, seed=0)
+    dg = build_device_graph(build_bigraph_from_unitigs(store, k))
+    sources = np.arange(4, dtype=np.int32)
+    with pytest.raises(ValueError, match="2\\^30"):
+        sssp_mod.batched_bounded_sssp_dispatch(
+            dg, sources, k - 1, capacity=1 << 28, batch_size=4, compact=True
+        )
